@@ -1,16 +1,16 @@
-"""swiftmp3_tpu — a TPU-native MPEG-1 Layer III (MP3) encoding framework.
+"""swiftmp3_tpu — a batched MPEG-1 Layer III (MP3) encoding framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 SwiftMP3 encoder (mierau/swift-mp3): the granule DSP (polyphase filterbank,
 MDCT + aliasing reduction, transient detection, psychoacoustic model,
 power-law quantization with rate control, table-15 Huffman sizing) runs as
-batched fixed-shape tensor programs on TPU, scaled by encoding many
+batched fixed-shape tensor programs on the accelerator (a GPU), scaled by encoding many
 independent streams per step; the variable-length bitstream (headers, side
 info, bit reservoir splicing, Xing/ID3 metadata) is assembled host-side.
 
 Public API parity with the reference:
     MP3Encoder, EncoderSession, MP3EncoderOptions, Mode, ID3Tag
-plus TPU-first batch APIs in swiftmp3_tpu.parallel.
+plus the batch APIs in swiftmp3_tpu.parallel.
 """
 
 import importlib

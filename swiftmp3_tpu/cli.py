@@ -2,7 +2,7 @@
 
     python -m swiftmp3_tpu input.wav output.mp3 [--bitrate 128] [--vbr]
         [--mode stereo|mono|joint_stereo] [--quality 5] [--crc]
-        [--title T --artist A --album AL] [--backend tpu|numpy]
+        [--title T --artist A --album AL] [--backend jax|numpy]
 
 Mirrors the reference's file-encode layout: [ID3][Xing/Info][frames].
 """
@@ -16,7 +16,7 @@ import time
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        prog="swiftmp3_tpu", description="TPU-native MP3 encoder"
+        prog="swiftmp3_tpu", description="Batched JAX MP3 encoder"
     )
     p.add_argument("input", help="input WAV file (PCM16 or float32)")
     p.add_argument("output", help="output MP3 file")
@@ -73,7 +73,7 @@ def main(argv=None) -> int:
     p.add_argument("--title")
     p.add_argument("--artist")
     p.add_argument("--album")
-    p.add_argument("--backend", choices=["tpu", "numpy"], default="tpu")
+    p.add_argument("--backend", choices=["jax", "numpy"], default="jax")
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
 

@@ -7,7 +7,7 @@ Mirrors the reference surface (MP3Encoder.swift:132-350): an immutable
 
 Backends produce fixed-shape FrameResults:
 - "numpy": golden host implementation (swiftmp3_tpu.ops.reference)
-- "tpu": batched JAX pipeline (swiftmp3_tpu.models.pipeline), the default
+- "jax": batched JAX pipeline (swiftmp3_tpu.models.pipeline), the default
 """
 
 from __future__ import annotations
@@ -1021,17 +1021,17 @@ class GoldenBackend:
 def _make_backend(name: str, options: MP3EncoderOptions):
     if name == "numpy":
         return GoldenBackend(options)
-    if name == "tpu":
-        from .models.pipeline import TPUBackend
+    if name == "jax":
+        from .models.pipeline import JaxBackend
 
-        return TPUBackend(options)
+        return JaxBackend(options)
     raise ValueError(f"unknown backend {name!r}")
 
 
 class EncoderSession:
     """Mutable per-stream encoding state (MP3Encoder.swift:237-350)."""
 
-    def __init__(self, options: MP3EncoderOptions, backend: str = "tpu"):
+    def __init__(self, options: MP3EncoderOptions, backend: str = "jax"):
         self.options = options
         self.assembler = FrameAssembler(options)
         self.backend = _make_backend(backend, options)
@@ -1217,7 +1217,7 @@ class EncoderSession:
 class MP3Encoder:
     """Stateless encoder facade (MP3Encoder.swift:132-145)."""
 
-    def __init__(self, options: Optional[MP3EncoderOptions] = None, backend: str = "tpu"):
+    def __init__(self, options: Optional[MP3EncoderOptions] = None, backend: str = "jax"):
         self.options = options if options is not None else MP3EncoderOptions()
         self._backend = backend
 

@@ -1,7 +1,7 @@
 """Host frame assembly: header, CRC, reservoir splice, one-frame delay.
 
 This is the variable-length half of the encoder. A backend (numpy golden or
-the TPU pipeline) produces per-frame `FrameResult`s — fixed-shape integers and
+the JAX pipeline) produces per-frame `FrameResult`s — fixed-shape integers and
 quantized spectra; this module renders bytes with the exact reference state
 machine (MP3Encoder.swift:465-568):
 

@@ -1,4 +1,4 @@
-// Native frame renderer: the host-side byte path of the TPU MP3 framework.
+// Native frame renderer: the host-side byte path of the MP3 framework.
 //
 // Renders fixed-shape device outputs (quantized spectra + side-info integers)
 // into MP3 frame bytes: table-15 Huffman packing, ISO 2.4.1.7 side info,
@@ -380,7 +380,7 @@ int64_t mp3_render_frames(void* p, int F,
     return written;
 }
 
-// Variant consuming device-packed main_data: the TPU already rendered each
+// Variant consuming device-packed main_data: the device already rendered each
 // frame's Huffman byte image (swiftmp3_tpu.ops.dsp.pack_main_data); the host
 // only splices reservoir slots and assembles headers/side info.
 // main_data: [F][cap] byte images; hb: [F] used byte counts. Returns bytes

@@ -16,6 +16,7 @@ from ..tables import mode_bits, sample_rate_index
 _DIR = os.path.dirname(__file__)
 _SO = os.path.join(_DIR, "libmp3render.so")
 _SRC = os.path.join(_DIR, "frame_render.cpp")
+_HDR = os.path.join(_DIR, "tables_gen.h")  # included by _SRC
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -38,7 +39,9 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
+        if not os.path.exists(_SO) or os.path.getmtime(_SO) < max(
+            os.path.getmtime(_SRC), os.path.getmtime(_HDR)
+        ):
             if not _build():
                 _build_failed = True
                 return None

@@ -1,6 +1,6 @@
-"""Batched TPU granule DSP: fixed-shape jnp programs over [N, ...] tensors.
+"""Batched granule DSP: fixed-shape jnp programs over [N, ...] tensors.
 
-TPU-first reformulation of the reference's per-granule scalar pipeline
+Accelerator reformulation of the reference's per-granule scalar pipeline
 (SURVEY.md §7): all 36 filterbank window positions of a frame are computed as
 one windowed-sum + [64,32] matmul; long/short/mixed MDCT are three fixed
 matmuls selected by masks; aliasing butterflies are a static slice/concat
@@ -100,10 +100,8 @@ _INV_STEP_TABLE = jnp.asarray(_INV_STEP_TABLE_NP)
 
 
 # --- Gather-free lookups -----------------------------------------------------
-# XLA's TPU gather runs at ~10 ns/element; at ~100M lookups per chunk the
-# 256-entry Huffman-length gather alone dominated the pipeline (measured
-# 937 ms of a 980 ms step). Both hot lookups are replaced with fused
-# elementwise computations:
+# The hot table lookups (~100M per chunk) are fused elementwise computations
+# rather than gathers (whether gathers win on the GPU is not measured yet):
 #  - table-15 lengths: 4-bit values nibble-packed into 32 uint32 words,
 #    selected with a 5-level binary where-tree + variable shift (~33 VPU ops
 #    per element, fully fusable).
@@ -287,8 +285,8 @@ def _build_polyphase_fold() -> list[np.ndarray]:
     S[pos, k] = sum_u x[32*pos + u] * C[u, k], C[u, k] =
     Wrev[u] * MrevT[u % 64, k] (u < 512). Packing x into 128-sample rows and
     4 window positions per output row (pos = 4r + c -> out col c*32 + k)
-    gives S4[r] = sum_d row[r+d] @ C3[d] — full-width MXU matmuls instead of
-    the K=32/N=32 shapes of the stepwise form (which idle ~15/16 of the MXU).
+    gives S4[r] = sum_d row[r+d] @ C3[d] — [*, 128] x [128, 128] matmuls
+    instead of the K=32/N=32 shapes of the stepwise form.
     """
     Wrev = np.asarray(ISO_WINDOW[::-1], dtype=np.float64)  # [512]
     MrevT = np.asarray(ANALYSIS_MATRIX[:, ::-1].T, dtype=np.float64)  # [64, 32]
@@ -441,7 +439,7 @@ def _build_mdct_fold() -> dict:
     """Fold window x MDCT matrix x norm (x aliasing) into dense [576, 576]
     float64-built matrices over the flat (t*32 + sb) granule layout.
 
-    The chunk MDCT then becomes plain `granule_flat @ M` MXU matmuls with no
+    The chunk MDCT then becomes plain `granule_flat @ M` matmuls with no
     [.., 32, 36] combined-window intermediates: rows are the granule's 576
     subband samples in filterbank order (free reshape of the [18, 32]
     filterbank output), columns are the spectrum's (sb*18 + m) layout.
@@ -848,26 +846,21 @@ def _t15_sweep(
     sign_neg: jax.Array,
     gstart: jax.Array,
     iso: bool,
-    use_pallas: bool,
+    use_kernel: bool,
 ) -> tuple[jax.Array, jax.Array]:
     """20-candidate table-15 bit counts + big_values from precomputed
-    magnitudes (shared by the compat sweep and the strict walk's pricing).
-    Returns (bits [..., 20], bv [..., 20])."""
-    if use_pallas:
-        # Fused Pallas sweep (quantize + count in registers; ~35% faster
-        # than the XLA fusion on v5e, bit-identical). pallas_kernels is
-        # already imported by the pipeline module, so this lazy lookup
-        # cannot trigger a first-import under a tracer.
-        from . import pallas_kernels
+    magnitudes. Returns (bits [..., 20], bv [..., 20])."""
+    if use_kernel:
+        # fused GPU sweep (ops.pallas_kernels), equal to the jnp form below
+        from .pallas_kernels import rate_sweep
 
-        bits, bv = pallas_kernels.rate_sweep_pallas(mag, gstart, iso=iso)
-    else:
-        gains = gstart[..., None] + 4 * jnp.arange(N_GAIN_CANDIDATES, dtype=jnp.int32)
-        qk = quantize_at_gains(mag, sign_neg, gains, iso=iso)  # [..., 20, 576]
-        pair_bits = _count_bits_pairs(qk)  # [..., 20, 288]
-        bv = big_values_from_quantized(qk)  # [..., 20]
-        pair_idx = jnp.arange(288, dtype=jnp.int32)
-        bits = jnp.sum(jnp.where(pair_idx < bv[..., None], pair_bits, 0), axis=-1)
+        return rate_sweep(mag, gstart, iso=iso)
+    gains = gstart[..., None] + 4 * jnp.arange(N_GAIN_CANDIDATES, dtype=jnp.int32)
+    qk = quantize_at_gains(mag, sign_neg, gains, iso=iso)  # [..., 20, 576]
+    pair_bits = _count_bits_pairs(qk)  # [..., 20, 288]
+    bv = big_values_from_quantized(qk)  # [..., 20]
+    pair_idx = jnp.arange(288, dtype=jnp.int32)
+    bits = jnp.sum(jnp.where(pair_idx < bv[..., None], pair_bits, 0), axis=-1)
     return bits, bv
 
 
@@ -875,7 +868,7 @@ def rate_loop_precompute(
     spectrum: jax.Array,
     init_gain: jax.Array,
     iso: bool = False,
-    use_pallas: bool = False,
+    use_kernel: bool = False,
 ) -> dict:
     """Budget-independent half of the gain walk: candidate bit counts.
 
@@ -900,7 +893,7 @@ def rate_loop_precompute(
 
     k = jnp.arange(N_GAIN_CANDIDATES, dtype=jnp.int32)
     gains = gstart[..., None] + 4 * k  # [..., 20]
-    bits, bv = _t15_sweep(mag, sign_neg, gstart, iso, use_pallas)
+    bits, bv = _t15_sweep(mag, sign_neg, gstart, iso, use_kernel)
     evaluated = (k == 0) | (gains < 255)
     return {
         "mag": mag,
@@ -934,7 +927,7 @@ def rate_loop_select(
     k_eval = jnp.where(evaluated & in_budget, k, -1)
     k_last = jnp.max(k_eval, axis=-1)
     k_sel = jnp.where(has_fit, k_fit, k_last).astype(jnp.int32)
-    # where-sum select, not take_along_axis (TPU gathers ~10 ns/element)
+    # where-sum select over the 20 candidates, not take_along_axis
     bits_sel = jnp.sum(jnp.where(k == k_sel[..., None], bits, 0), axis=-1)
     return k_sel, has_fit, bits_sel
 
@@ -991,7 +984,7 @@ def rate_loop(
 # --- Device-side Huffman bit packing ------------------------------------------
 # The north-star architecture (BASELINE.json): a device-side pack stage with
 # host finalization. Variable-length codes are placed into the frame's
-# main_data byte image entirely on the TPU:
+# main_data byte image entirely on the device:
 #   1. per pair: chunk = codeword | sign bits (<= 15 bits), length l
 #   2. bit offsets O = exclusive cumsum over the frame's 1152 pair slots
 #   3. each chunk straddles <= 2 16-bit halfwords: h = O >> 4, s = O & 15;
@@ -1000,7 +993,7 @@ def rate_loop(
 #      h_p+1 == h. Bits are disjoint, so OR == SUM, and per 8-bit plane the
 #      sums stay < 256 — exact in float32.
 #   5. the scatter is factorized: one-hot(h) = one-hot(h>>5) x one-hot(h&31),
-#      so each plane reduces to a [34,P]x[P,32] batched matmul on the MXU —
+#      so each plane reduces to a [34,P]x[P,32] batched matmul —
 #      no gathers, no scatters.
 
 def _pack_code_words() -> np.ndarray:
@@ -1081,13 +1074,13 @@ def pack_main_data(chunks: jax.Array, nbits: jax.Array, cap_bytes: int) -> tuple
     # 2160-byte worst case: scatter FLOPs scale with hi_dim, and targets
     # beyond the cap are dropped either way (truncated frames are rejected
     # host-side via hb > cap). 34 -> 14 at the 128 kbps stereo cap, ~2.4x
-    # less MXU work.
+    # less matmul work.
     hi_dim = (n_half + _LO_DIM - 1) // _LO_DIM
 
     def scatter_halfwords(values: jax.Array, target: jax.Array) -> jax.Array:
         """sum_{p: target_p == h} values_p for h < n_half, via factorized
         one-hot matmuls. One-hots and byte-plane values are exact in
-        bfloat16 (integers <= 255); accumulation is f32 on the MXU."""
+        bfloat16 (integers <= 255); accumulation is f32."""
         t_hi = (target >> 5)[..., None] == jnp.arange(hi_dim, dtype=jnp.int32)
         t_lo = (target & 31)[..., None] == jnp.arange(_LO_DIM, dtype=jnp.int32)
         Bm = t_lo.astype(jnp.bfloat16)  # [blk, P, 32]
@@ -1107,7 +1100,7 @@ def pack_main_data(chunks: jax.Array, nbits: jax.Array, cap_bytes: int) -> tuple
 
     # Block over frames: materializing the one-hots for all frames at once
     # would cost O(F * P * 66) floats (~1 GB at F=4096); 256-frame blocks
-    # keep it ~40 MB while each block is still a beefy MXU matmul.
+    # keep it ~40 MB while each block is still a large matmul.
     BLK = 256
     F_pad = ((F + BLK - 1) // BLK) * BLK
     def pad(a):
@@ -1178,7 +1171,9 @@ def masking_thresholds(
     )
     avg = band_energy / widths
     thr_band = jnp.maximum(avg * quality_scale, _F32(1e-4))
-    thr = jnp.einsum("...b,bc->...c", thr_band, member.astype(jnp.float32))
+    thr = jnp.einsum(
+        "...b,bc->...c", thr_band, member.astype(jnp.float32), precision=_HIGHEST
+    )
     return jnp.where(jnp.any(member, axis=0), thr, _F32(1e-4))
 
 
@@ -1319,10 +1314,8 @@ def _dense_table_flat(tid: int, attr: str) -> np.ndarray:
     even count for halfword packing). The where-tree over the padded 16x16
     layout costs 127 nodes per table regardless of real size; t1/t2/t5/t7
     carry only 4/9/16/36 real entries, so dense repacking cuts the code
-    select-tree from 508 nodes to 29 across the four small tables
-    (measured -1.9 ms on the hq chunk emission at 128x64 — codes only;
-    the ANALOGOUS len repack in the sweep is a round-3 pinned NEGATIVE,
-    don't extend it there)."""
+    select-tree from 508 nodes to 29 across the four small tables (codes
+    only; the len tables of the sweep keep the 16x16 layout)."""
     t = HUFFMAN_TABLES[tid]
     n = t.max_value + 1
     flat = np.asarray(getattr(t, attr))[:n, :n].reshape(-1).astype(np.uint32)
@@ -1613,7 +1606,6 @@ def rate_loop_precompute_strict(
     part2: jax.Array = None,
     block: jax.Array = None,
     iso_short: bool = False,
-    use_pallas: bool = False,
     linbits: bool = False,
     b0_switch: jax.Array | None = None,
 ) -> dict:
@@ -1679,9 +1671,8 @@ def rate_loop_precompute_strict(
     # Exact strict bits at STRICT_ANCHORS of the grid, piecewise-linear
     # integer interpolation between them (floor division — golden twin:
     # reference.quantize_to_fit_budget_strict uses the identical law).
-    # lax.map compiles the layout body once (unrolling it made XLA compile
-    # times pathological on v5e — see round-2 notes); 6 evaluations instead
-    # of round 2's 20 is where the strict step's 2.3x overhead went.
+    # lax.map compiles the layout body once (unrolling it multiplies the
+    # compile time by the anchor count).
     qcap = QCAP_LINBITS if linbits else 15
 
     def _one_anchor(a):
@@ -1932,9 +1923,8 @@ def strict_scalefactors_device(
     _, ge = jnp.frexp(gp)
 
     # Band peaks as STATIC SLICE maxima (bands are contiguous), not masked
-    # maxes over the full 576 — same exact f32 result; the short law
-    # (_switching_sfd_device) learned this in round 3 (71 masked maxes
-    # measured +13 ms/step at 128x64).
+    # maxes over the full 576 — same exact f32 result, a fraction of the
+    # work (as in _switching_sfd_device).
     sfs = []
     for b in range(21):
         pb = jnp.max(absx[..., int(bounds[b]) : int(bounds[b + 1])], axis=-1)
@@ -2600,8 +2590,7 @@ def scfsi_part2_device(sfd: dict, write: jax.Array) -> jax.Array:
 # the tables.short_reorder_src / mixed_reorder_src permutations. The reorder
 # is implemented as static per-band slice+transpose over a [..., 192, 3]
 # (line, window) view — natural coefficient sb*18 + 3m + w == 3*line + w —
-# NOT a gather (TPU gathers cost ~10 ns/element; these compile to plain
-# relayout copies).
+# not a gather: these compile to plain relayout copies.
 
 from ..tables import short_band_bounds as _short_band_bounds  # noqa: E402
 
@@ -2742,8 +2731,8 @@ def _switching_sfd_device(
 
     Band peaks are SLICE maxima over the [..., 192, 3] (line, window) view
     and mag_scale is built by broadcast+concat over the static band spans —
-    not masked maxes / where-chains over the full 576 per slot (71 of those
-    measured +13 ms/step at 128x64; f32 max is exact either way)."""
+    not masked maxes / where-chains over the full 576 per slot (f32 max is
+    exact either way)."""
     bounds = [int(b) for b in _short_band_bounds(sample_rate)]
     lead = spectrum.shape[:-1]
     absx = jnp.abs(spectrum)
@@ -2903,9 +2892,9 @@ def granule_scalefactors_device(
     return out
 
 
-# --- Block-sparse MDCT experiment (round 3, VERDICT item 5) ------------------
-# The dense fold ([.., 576] @ [576, 1188]) is AT the fp32 matmul wall while
-# wasting ~16-33x FLOPs vs the per-subband block structure. This variant
+# --- Block-sparse MDCT variant --------------------------------------------------
+# The dense fold ([.., 576] @ [576, 1188]) spends ~16-33x the FLOPs of the
+# per-subband block structure. This variant
 # exploits the structure in pure XLA: transpose the granule to subband-major
 # [.., 32, 36] (prev||cur on the minor axis), then ONE [36, 18] matmul per
 # law with the aliasing butterflies folded as a block-TRIDIAGONAL law

@@ -1,383 +1,137 @@
-"""Pallas TPU kernels for the hot DSP ops.
+"""Hand-written GPU kernel for the compat rate sweep (Pallas, Triton route).
 
-polyphase_chunk_pallas: the ISO analysis filterbank over a whole chunk.
-The idea: keep each tile's samples in VMEM, build the 64-phase partial sums
-in registers, and hit the MXU once per tile with the [64, 32] cosine matrix.
+`rate_sweep` fuses the compat path's 20-gain quantise-and-count sweep
+(twin of the jnp formulation in ops.dsp._t15_sweep). The plain form builds
+[N, 20, 576] candidate tensors and reduces them twice (big_values, then the
+masked table-15 bit sum); here one program handles BLOCK_ROWS granules,
+reads their magnitudes once, and loops over the 20 gains with every
+candidate held in registers.
 
-Tiling: rows = 8 streams (sublane), columns = 96 window positions per tile
-(96 divides 36*T for any even T chunk size used by the pipeline). Each tile
-needs a 480-sample halo, supplied by a second input ref whose block index
-map points one tile ahead (overlapping reads are not expressible with a
-single BlockSpec).
+Layout: the 288 (x, y) pairs of a granule load as two [rows, 512] tiles
+(Triton wants power-of-two tensors; pairs >= 288 are masked). The per-gain
+inverse steps come in precomputed by the same ops.dsp lookups the jnp path
+uses, so both paths quantise with identical float32 factors. The table-15
+length lookup is a load from a 256-entry table.
 
-STATUS (v5e, 2026-08): compiles and runs on the chip after two Mosaic
-workarounds — the [*, steps, 32] framing moved outside the kernel (no
-in-kernel shape cast of a flat vector) and the 64-phase partial sum split
-into two 32-lane halves (minor-dim concatenation of shifted slices is
-unsupported). Matches the jnp path to ~1e-7 (in-kernel dots need explicit
-Precision.HIGHEST — the Mosaic default multiplies in bf16) and measures
-~4.9 ms vs ~5.7 ms for XLA's fusion on a 128-stream x 32-frame chunk. Used
-by the pipeline on the TPU platform when the chunk's window count divides
-the tile size; the jnp formulation is the fallback and CI path.
+Exactness: `floor(mag * inv + 0.5)` decides the integers, and Triton may
+contract a multiply feeding an add into an FMA where XLA rounds the product
+first. The product is therefore issued as an explicit round-to-nearest
+`mul.rn.f32`, which no compiler pass may fuse. Interpret mode (CPU tests)
+uses a plain multiply, which XLA:CPU does not contract.
 """
 
 from __future__ import annotations
 
-from functools import partial
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..tables import ANALYSIS_MATRIX, ISO_WINDOW
+from ..tables import TABLE15_LEN
+from .dsp import N_GAIN_CANDIDATES, inv_step34_lookup, inv_step_lookup
 
-_W8 = jnp.asarray(ISO_WINDOW[::-1].copy().reshape(8, 64))  # [8, 64]
-_M2T = jnp.asarray(ANALYSIS_MATRIX[:, ::-1].T.copy())  # [64, 32]
+# Tuned on an H100 at N = 131,072 granules (PERF.md): rows/warps of 2/4
+# beat 4/4, 4/8, 2/8 and 8/4-8/8.
+BLOCK_ROWS = 2  # granules per program
+NUM_WARPS = 4
+NUM_STAGES = 1
+_PAIRS = 288
+_PAIR_TILE = 512  # _PAIRS rounded up to a power of two
+_OUT_TILE = 32  # N_GAIN_CANDIDATES rounded up to a power of two
+_T15_LEN = TABLE15_LEN.astype(np.int32)
 
-BN = 8  # stream rows per tile
-BT = 96  # window positions per tile
-_SPAN = 32 * BT  # main block samples
-_HALO = 512  # halo block samples (480 used)
+
+def sweep_kernel_enabled() -> bool:
+    """The fused sweep runs where it was compiled for: NVIDIA GPUs."""
+    return jax.devices()[0].platform == "gpu"
 
 
-def _kernel(a_ref, halo_ref, w8lo_ref, w8hi_ref, m2lo_ref, m2hi_ref, out_ref):
-    # a_ref: [BN, BT, 32] step rows; halo_ref: [BN, 16, 32] next-tile rows;
-    # w8lo/w8hi: [8, 32] window phases split in halves; m2lo/m2hi: [32, 32]
-    # halves of the [64, 32] cosine matrix; out_ref: [BN, BT, 32].
-    #
-    # Mosaic notes: the [*, steps, 32] framing happens OUTSIDE the kernel
-    # (no in-kernel shape cast of a flat vector), and the 64-phase partial
-    # sum is split into two 32-lane halves (minor-dim concatenation of
-    # shifted slices is unsupported): for phases j < 32 the partial uses
-    # step rows tt+2m; for j >= 32 it uses rows tt+2m+1.
-    A = jnp.concatenate([a_ref[:, :, :], halo_ref[:, :15, :]], axis=1)  # [BN, BT+15, 32]
-    p_lo = A[:, 0:BT, :] * w8lo_ref[0]
-    p_hi = A[:, 1 : BT + 1, :] * w8hi_ref[0]
-    for m in range(1, 8):
-        p_lo = p_lo + A[:, 2 * m : 2 * m + BT, :] * w8lo_ref[m]
-        p_hi = p_hi + A[:, 2 * m + 1 : 2 * m + 1 + BT, :] * w8hi_ref[m]
-    S = jax.lax.dot_general(
-        p_lo.reshape(BN * BT, 32),
-        m2lo_ref[:, :],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    ) + jax.lax.dot_general(
-        p_hi.reshape(BN * BT, 32),
-        m2hi_ref[:, :],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
+def _exact_mul(a, b):
+    (out,) = plgpu.elementwise_inline_asm(
+        "mul.rn.f32 $0, $1, $2;",
+        args=[a, b],
+        constraints="=r,r,r",
+        pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(a.shape, jnp.float32)],
     )
-    out_ref[:, :, :] = S.reshape(BN, BT, 32)
+    return out
 
 
-def polyphase_chunk_pallas(
-    hist: jax.Array, pcm: jax.Array, interpret: bool = False
-) -> tuple[jax.Array, jax.Array]:
-    """Drop-in replacement for ops.dsp.polyphase_chunk (same contract).
+def _sweep_kernel(mag_ref, inv_ref, t15_ref, bits_ref, bv_ref, *, n, rows, interpret):
+    row0 = pl.program_id(0) * rows
+    row = row0 + jnp.arange(rows, dtype=jnp.int32)
+    live_row = row < n
+    pair = jnp.arange(_PAIR_TILE, dtype=jnp.int32)
+    live = live_row[:, None] & (pair < _PAIRS)[None, :]
+    r_idx = jnp.where(live_row, row, 0)[:, None]
+    c_idx = jnp.where(pair < _PAIRS, 2 * pair, 0)[None, :]
+    mag_x = plgpu.load(mag_ref.at[r_idx, c_idx], mask=live, other=0.0)
+    mag_y = plgpu.load(mag_ref.at[r_idx, c_idx + 1], mask=live, other=0.0)
 
-    hist: [..., 480]; pcm: [..., T*1152]. Returns (S [..., 36T, 32], full
-    signal x [..., 480 + T*1152]).
-    """
-    x_full = jnp.concatenate([hist, pcm], axis=-1)
-    lead = x_full.shape[:-1]
-    L = x_full.shape[-1]
-    T36 = (L - 480) // 32
-    assert T36 % BT == 0, f"chunk windows {T36} not divisible by {BT}"
-    N = int(np.prod(lead)) if lead else 1
-    N_pad = ((N + BN - 1) // BN) * BN
-
-    x = x_full.reshape(N, L)
-    # pad streams to a multiple of BN and add 32 tail samples so the last
-    # halo block (16 step rows) stays in bounds
-    x = jnp.pad(x, ((0, N_pad - N), (0, 32)))
-    A = x.reshape(N_pad, (L + 32) // 32, 32)  # step rows, framed outside
-
-    n_tiles = T36 // BT
-    halo_stride = BT // 16  # halo block-index stride of the main span
-
-    S = pl.pallas_call(
-        _kernel,
-        out_shape=jax.ShapeDtypeStruct((N_pad, T36, 32), jnp.float32),
-        grid=(N_pad // BN, n_tiles),
-        in_specs=[
-            pl.BlockSpec(
-                (BN, BT, 32), lambda i, j: (i, j, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (BN, 16, 32),
-                lambda i, j: (i, j * halo_stride + halo_stride, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((8, 32), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, 32), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((32, 32), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((32, 32), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (BN, BT, 32), lambda i, j: (i, j, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(A, A, _W8[:, :32], _W8[:, 32:], _M2T[:32], _M2T[32:])
-
-    S = S[:N].reshape(*lead, T36, 32)
-    return S, x_full
-
-
-# --- Rate-loop 20-gain sweep kernel -------------------------------------------
-# Fuses quantization + table-15 bit counting across all N_GAIN_CANDIDATES
-# gains for a tile of granules, keeping every intermediate (the [.., 20, 576]
-# quantized candidates the XLA path materializes) in registers/VMEM. The
-# where-tree LUT and the exact ldexp step reconstruction are the same
-# gather-free formulations as ops.dsp (laws identical; tested bit-exact).
-#
-# Layout: the even/odd pair deinterleave happens OUTSIDE the kernel (Mosaic
-# dislikes lane-strided slices): magx/magy [G, 384] (288 pairs zero-padded
-# to 3x128 lanes). Outputs ride in one [G, 128] int32 block: bits at lanes
-# 0..19, big_values at lanes 64..83.
-
-from .dsp import (  # noqa: E402
-    N_GAIN_CANDIDATES,
-    _INV_QUARTER,
-    _INV_STEP_FLOOR,
-    _INV_STEP34_FLOOR,
-    _SIXTEENTH,
-    _T15_LEN_WORDS,
-)
-
-
-# --- Device-side Huffman bit packing kernel ------------------------------------
-# Same law as ops.dsp.pack_main_data (disjoint-bit placement, OR == SUM,
-# factorized one-hot matmuls) but VMEM-resident: the XLA path materializes
-# ~4.5 GB of one-hot operands in HBM per 8192-frame chunk (measured 5.7 ms,
-# bandwidth/batched-matmul-util bound); here the bit-offset cumsum runs as a
-# log-doubling roll chain in VMEM and the one-hots are built in registers and
-# fed to the MXU as stacked block-diagonal matmuls (full 128-row utilization
-# at the price of computing HALF x HALF frame blocks and keeping only the
-# diagonal).
-#
-# BYTE-granularity scatter (round 4): a <= 15-bit chunk at bit offset O spans
-# at most THREE bytes (s8 = O & 7 <= 7, s8 + 15 <= 22 < 24), so the scatter
-# is 3 single-byte-plane matmuls instead of the round-2 halfword form's
-# 2 straddle targets x 2 byte planes = 4 — 25% fewer MXU MACs per slot — and
-# the output needs no halfword recombination. Byte targets double the hi
-# range (894-byte cap -> hi_pad 32), so 4-frame halves fill the 128-row
-# stationary dim and N = 4 * 32 = 128 exactly fills the lanes. Chip A/B
-# (in-step, hq 128x64, back-to-back): 66.06 -> 65.29 ms — the pack stage is
-# mostly cumsum/one-hot-build (VPU) bound at this shape, so the MAC saving
-# nets ~1%; kept for the win plus the simpler epilogue. Bit-identical to the
-# XLA pack and to the retired halfword kernel (verified on chip; the
-# halfword kernel lives in git history).
-
-BF_B = 8  # frames per VMEM tile (sublane-divisible); the stacked one-hot
-# matmuls run on 4-frame HALVES so M = 4 * hi_pad = 128 rows and
-# N = 4 * 32 = 128 lanes exactly fill the MXU at the 894-byte cap.
-_HALF_B = 4
-
-
-def _pack_kernel(chunks_ref, nbits_ref, out_ref, *, P: int, hi_pad: int):
-    chunks_all = chunks_ref[:, :].astype(jnp.uint32)
-    nbits_all = nbits_ref[:, :]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (BF_B, P), 1)
-
-    # exclusive cumsum of nbits along lanes (log-doubling roll+mask)
-    s = nbits_all
-    sh = 1
-    while sh < P:
-        s = s + jnp.where(lane >= sh, pltpu.roll(s, sh, axis=1), 0)
-        sh *= 2
-    off_all = s - nbits_all
-
-    b_all = off_all >> 3
-    s8 = off_all & 7
-    shift = jnp.where(nbits_all > 0, 24 - s8 - nbits_all, 0).astype(jnp.uint32)
-    win = jnp.where(nbits_all > 0, chunks_all << shift, jnp.uint32(0))  # <= 24 b
-
-    halves = []
-    for h0 in range(0, BF_B, _HALF_B):
-        b = b_all[h0 : h0 + _HALF_B]
-        w = win[h0 : h0 + _HALF_B]
-        planes = (
-            (b, ((w >> 16) & 0xFF).astype(jnp.int32)),
-            (b + 1, ((w >> 8) & 0xFF).astype(jnp.int32)),
-            (b + 2, (w & 0xFF).astype(jnp.int32)),
-        )
-        acc = None
-        for target, values in planes:
-            t3 = jnp.broadcast_to(target[:, None, :] & 31, (_HALF_B, 32, P))
-            i3 = jax.lax.broadcasted_iota(jnp.int32, (_HALF_B, 32, P), 1)
-            Bm = (t3 == i3).astype(jnp.bfloat16).reshape(_HALF_B * 32, P)
-            t_hi = target >> 5
-            A3 = jnp.where(
-                jnp.broadcast_to(t_hi[:, None, :], (_HALF_B, hi_pad, P))
-                == jax.lax.broadcasted_iota(jnp.int32, (_HALF_B, hi_pad, P), 1),
-                jnp.broadcast_to(values[:, None, :], (_HALF_B, hi_pad, P)),
-                0,
-            ).astype(jnp.bfloat16)
-            A = A3.reshape(_HALF_B * hi_pad, P)
-            M = jax.lax.dot_general(
-                A,
-                Bm,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # [_HALF_B*hi_pad, _HALF_B*32]
-            blocks = [
-                M[f * hi_pad : (f + 1) * hi_pad, f * 32 : (f + 1) * 32][None]
-                for f in range(_HALF_B)
-            ]
-            contrib = jnp.concatenate(blocks, axis=0).astype(jnp.int32)
-            acc = contrib if acc is None else acc + contrib
-        halves.append(acc)
-    out_ref[:, :, :] = jnp.concatenate(halves, axis=0)
-
-
-def pack_pallas(
-    chunks: jax.Array, nbits: jax.Array, cap_bytes: int, interpret: bool = False
-) -> tuple[jax.Array, jax.Array]:
-    """Drop-in replacement for ops.dsp.pack_main_data (same contract).
-
-    chunks/nbits: [F, P] int32 per-slot codes (<= 15 bits each) and lengths;
-    returns (bytes [F, cap_bytes] uint8, total_bits [F] int32).
-    """
-    F, P = chunks.shape
-    hi_dim = (cap_bytes + 31) // 32
-    hi_pad = ((hi_dim + 7) // 8) * 8
-    P_pad = ((P + 127) // 128) * 128
-    F_pad = ((F + BF_B - 1) // BF_B) * BF_B
-
-    total_bits = jnp.sum(nbits, axis=-1).astype(jnp.int32)
-
-    c = jnp.pad(chunks, ((0, F_pad - F), (0, P_pad - P)))
-    nb = jnp.pad(nbits, ((0, F_pad - F), (0, P_pad - P)))
-
-    by = pl.pallas_call(
-        partial(_pack_kernel, P=P_pad, hi_pad=hi_pad),
-        out_shape=jax.ShapeDtypeStruct((F_pad, hi_pad, 32), jnp.int32),
-        grid=(F_pad // BF_B,),
-        in_specs=[
-            pl.BlockSpec((BF_B, P_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((BF_B, P_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (BF_B, hi_pad, 32), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(c, nb)
-
-    out_bytes = by.reshape(F_pad, hi_pad * 32)[:F, :cap_bytes].astype(jnp.uint8)
-    return out_bytes, total_bits
-
-BG = 8  # granule rows per tile
-_PAIR_LANES = 384  # 288 pairs padded to 3*128
-
-
-def _tree_lookup_words(idx, words, lo, hi):
-    """values[idx] for constant uint32 `words` (in-kernel where-tree)."""
-    if hi - lo == 1:
-        return jnp.full(idx.shape, int(words[lo]), dtype=jnp.uint32)
-    mid = (lo + hi) // 2
-    return jnp.where(
-        idx < mid,
-        _tree_lookup_words(idx, words, lo, mid),
-        _tree_lookup_words(idx, words, mid, hi),
-    )
-
-
-_SIXTEENTH_BITS = _SIXTEENTH.view(np.uint32)
-
-
-def _sweep_kernel(magx_ref, magy_ref, gstart_ref, out_ref, *, iso: bool):
-    magx = magx_ref[:, :]
-    magy = magy_ref[:, :]
-    g0 = gstart_ref[:, 0:1]  # [BG, 1] int32
-    lane = jax.lax.broadcasted_iota(jnp.int32, (BG, 128), 1)
-    pairpos = jax.lax.broadcasted_iota(jnp.int32, (BG, _PAIR_LANES), 1)
-
-    c0, c1, c2, c3 = (float(x) for x in _INV_QUARTER)
-    acc = jnp.zeros((BG, 128), dtype=jnp.int32)
+    lane = jnp.arange(_OUT_TILE, dtype=jnp.int32)[None, :]
+    bits_acc = jnp.zeros((rows, _OUT_TILE), jnp.int32)
+    bv_acc = jnp.zeros((rows, _OUT_TILE), jnp.int32)
     for k in range(N_GAIN_CANDIDATES):
-        g = jnp.minimum(g0 + 4 * k, 255)
-        if iso:
-            # step^-0.75 = 2^(-3(g-210)/16): sixteenth constants + ldexp
-            e = -3 * (g - 210)
-            q_exp = e >> 4
-            r = e - (q_exp << 4)
-            cbits = _tree_lookup_words(r, _SIXTEENTH_BITS, 0, 16)
-            invc = pltpu.bitcast(cbits, jnp.float32)
-            inv = jnp.where(
-                g < 157, jnp.float32(_INV_STEP34_FLOOR), jnp.ldexp(invc, q_exp)
-            )
+        inv = plgpu.load(
+            inv_ref.at[pl.ds(row0, rows), pl.ds(k, 1)],
+            mask=live_row[:, None],
+            other=0.0,
+        )
+        inv = jnp.broadcast_to(inv, mag_x.shape)
+        if interpret:
+            px, py = mag_x * inv, mag_y * inv
         else:
-            d = g - 210
-            q_exp = d >> 2
-            frac = d - (q_exp << 2)
-            invc = jnp.where(
-                frac < 2,
-                jnp.where(frac == 0, c0, c1),
-                jnp.where(frac == 2, c2, c3),
-            ).astype(jnp.float32)
-            inv = jnp.where(
-                g < 157, jnp.float32(_INV_STEP_FLOOR), jnp.ldexp(invc, -q_exp)
-            )  # [BG, 1]
-
-        qx = jnp.minimum(
-            jnp.floor(magx * inv + jnp.float32(0.5)).astype(jnp.int32), 15
-        )
-        qy = jnp.minimum(
-            jnp.floor(magy * inv + jnp.float32(0.5)).astype(jnp.int32), 15
-        )
-        idx = qx * 16 + qy
-        word = _tree_lookup_words(idx >> 3, _T15_LEN_WORDS, 0, 32)
-        shift = ((idx & 7) * 4).astype(jnp.uint32)
-        length = ((word >> shift) & 15).astype(jnp.int32)
-        sign_bits = (qx != 0).astype(jnp.int32) + (qy != 0).astype(jnp.int32)
-
-        nz = (qx != 0) | (qy != 0)
-        bv = jnp.max(jnp.where(nz, pairpos + 1, 0), axis=1, keepdims=True)
-        bits = jnp.sum(
-            jnp.where(pairpos < bv, length + sign_bits, 0), axis=1, keepdims=True
-        )
-        acc = acc + jnp.where(lane == k, bits, 0) + jnp.where(lane == 64 + k, bv, 0)
-    out_ref[:, :] = acc
+            px, py = _exact_mul(mag_x, inv), _exact_mul(mag_y, inv)
+        qx = jnp.minimum(jnp.floor(px + jnp.float32(0.5)).astype(jnp.int32), 15)
+        qy = jnp.minimum(jnp.floor(py + jnp.float32(0.5)).astype(jnp.int32), 15)
+        nzx = (qx != 0).astype(jnp.int32)
+        nzy = (qy != 0).astype(jnp.int32)
+        length = plgpu.load(t15_ref.at[qx * 16 + qy])
+        bv = jnp.max(jnp.where(nzx + nzy > 0, pair[None, :] + 1, 0), axis=1, keepdims=True)
+        counted = jnp.where(pair[None, :] < bv, length + nzx + nzy, 0)
+        bits = jnp.sum(counted, axis=1, keepdims=True)
+        bits_acc = jnp.where(lane == k, bits, bits_acc)
+        bv_acc = jnp.where(lane == k, bv, bv_acc)
+    out_mask = live_row[:, None] & (lane >= 0)
+    plgpu.store(bits_ref.at[pl.ds(row0, rows), :], bits_acc, mask=out_mask)
+    plgpu.store(bv_ref.at[pl.ds(row0, rows), :], bv_acc, mask=out_mask)
 
 
-def rate_sweep_pallas(
-    mag: jax.Array, gstart: jax.Array, iso: bool = False, interpret: bool = False
+def rate_sweep(
+    mag: jax.Array,
+    gstart: jax.Array,
+    iso: bool = False,
+    *,
+    interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
-    """Candidate (bits, bv) for the 20-gain walk grid.
+    """Candidate (bits, bv) for the 20-gain walk grid, fused.
 
-    mag: [..., 576] f32 (|x|_floored^0.75, possibly scalefactor-scaled);
-    gstart: [...] int32. Returns (bits [..., 20], bv [..., 20]) int32 — the
-    table-15 pair law (twin of the corresponding ops.dsp.rate_loop_precompute
-    internals; gains above 255 clamp, matching inv_step_lookup's clip).
-    iso selects the unit-gain step^-0.75 law (options.iso_quantization).
+    mag: [..., 576] f32 (max(|x|, 1e-10)^0.75); gstart: [...] int32.
+    Returns (bits [..., 20], bv [..., 20]) int32, equal to
+    ops.dsp._t15_sweep's jnp formulation. iso selects the unit-gain
+    step^-0.75 law (options.iso_quantization).
     """
     lead = mag.shape[:-1]
-    N = int(np.prod(lead)) if lead else 1
-    N_pad = ((N + BG - 1) // BG) * BG
-
-    m2 = mag.reshape(N, 576)
-    magx = jnp.pad(m2[:, 0::2], ((0, N_pad - N), (0, _PAIR_LANES - 288)))
-    magy = jnp.pad(m2[:, 1::2], ((0, N_pad - N), (0, _PAIR_LANES - 288)))
-    gs = jnp.pad(gstart.reshape(N).astype(jnp.int32), (0, N_pad - N))
-    gs = jnp.broadcast_to(gs[:, None], (N_pad, 128))
-
-    out = pl.pallas_call(
-        partial(_sweep_kernel, iso=iso),
-        out_shape=jax.ShapeDtypeStruct((N_pad, 128), jnp.int32),
-        grid=(N_pad // BG,),
-        in_specs=[
-            pl.BlockSpec((BG, _PAIR_LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((BG, _PAIR_LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((BG, 128), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((BG, 128), lambda i: (i, 0), memory_space=pltpu.VMEM),
+    n = int(np.prod(lead)) if lead else 1
+    gains = gstart.reshape(n, 1) + 4 * jnp.arange(N_GAIN_CANDIDATES, dtype=jnp.int32)
+    gains = jnp.clip(gains, 0, 255)
+    inv = inv_step34_lookup(gains) if iso else inv_step_lookup(gains)
+    out = jax.ShapeDtypeStruct((n, _OUT_TILE), jnp.int32)
+    bits, bv = pl.pallas_call(
+        functools.partial(_sweep_kernel, n=n, rows=BLOCK_ROWS, interpret=interpret),
+        out_shape=(out, out),
+        grid=(pl.cdiv(n, BLOCK_ROWS),),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES
+        ),
         interpret=interpret,
-    )(magx, magy, gs)
-
-    bits = out[:N, :N_GAIN_CANDIDATES].reshape(*lead, N_GAIN_CANDIDATES)
-    bv = out[:N, 64 : 64 + N_GAIN_CANDIDATES].reshape(*lead, N_GAIN_CANDIDATES)
-    return bits, bv
+        name="rate_sweep",
+    )(mag.reshape(n, 576), inv.astype(jnp.float32), jnp.asarray(_T15_LEN))
+    shape = (*lead, N_GAIN_CANDIDATES)
+    return (
+        bits[:, :N_GAIN_CANDIDATES].reshape(shape),
+        bv[:, :N_GAIN_CANDIDATES].reshape(shape),
+    )

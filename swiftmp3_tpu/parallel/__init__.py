@@ -1,12 +1,12 @@
-"""TPU parallelism: device meshes and batched multi-stream encoding.
+"""Parallelism: device meshes and batched multi-stream encoding.
 
 The reference's concurrency story is N independent `Sendable` sessions on N
-threads (MP3Encoder.swift:132, README.md:152-162); the TPU-native equivalent
-is batch (data) parallelism — thousands of independent streams encoded per
-pjit step, the batch axis sharded over chips via an ICI mesh. The time axis
-stays a `lax.scan` (MP3 state is a strict serial chain per stream). No
-cross-chip collectives exist in the numeric path; multi-host = more batch
-shards over DCN.
+threads (MP3Encoder.swift:132, README.md:152-162); the accelerator
+equivalent is batch (data) parallelism — thousands of independent streams
+encoded per jitted step, the batch axis sharded over the devices of a flat
+mesh. The time axis stays a `lax.scan` (MP3 state is a strict serial chain
+per stream). No cross-device collectives exist in the numeric path;
+multi-host = more batch shards.
 """
 
 import importlib

@@ -1,7 +1,7 @@
 """Profiling & observability: jax.profiler traces + throughput counters.
 
 The reference has no tracing/metrics beyond two counters (SURVEY.md §5);
-the TPU framework adds the planned equivalents: device traces around encode
+this framework adds the planned equivalents: device traces around encode
 steps and audio-seconds/sec accounting.
 """
 

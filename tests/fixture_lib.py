@@ -1,7 +1,7 @@
 """Frozen byte-fixture definitions shared by the generator and the test.
 
 Fixtures pin today's encoder bytes (per backend) against silent drift while
-perf work rewrites the hot path — the TPU-framework analogue of the
+perf work rewrites the hot path — this framework's analogue of the
 reference's determinism test (SwiftMP3Tests.swift:775-799). Inputs are
 regenerated deterministically (PCG64 is a stable algorithm across numpy
 versions/platforms), encoded through the PUBLIC API, and compared to the
@@ -21,7 +21,7 @@ import numpy as np
 from swiftmp3_tpu import MP3Encoder, MP3EncoderOptions, Mode
 
 FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
-BACKENDS = ("numpy", "tpu")
+BACKENDS = ("numpy", "jax")
 
 
 def _sine(n: int, sr: int, freq: float, amp: float) -> np.ndarray:

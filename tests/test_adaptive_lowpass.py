@@ -150,7 +150,7 @@ def test_backends_agree_and_decision_varies():
     assert _encode(static, bright, "numpy") != _encode(off, bright, "numpy")
 
     g = _encode(adap, mixed, "numpy")
-    d = _encode(adap, mixed, "tpu")
+    d = _encode(adap, mixed, "jax")
     assert g == d
 
 

@@ -58,7 +58,7 @@ def _decoded_granules(data, sr=44100):
     return out
 
 
-@pytest.mark.parametrize("backend", ["numpy", "tpu"])
+@pytest.mark.parametrize("backend", ["numpy", "jax"])
 def test_aligned_decodes_granule_exact(backend):
     pcm = sine(8 * 1152 / 44100)[: 8 * 1152]
     data, s = _encode(pcm, backend=backend, mode=Mode.MONO, reservoir_mode="aligned")
@@ -104,10 +104,10 @@ def test_aligned_cross_backend_and_native():
     pcm = (rng.standard_normal(1152 * 10) * 0.5).astype(np.float32)
     pcm[: 1152 * 4] *= 0.02
     outs = {}
-    for be in ["numpy", "tpu"]:
+    for be in ["numpy", "jax"]:
         data, _ = _encode(pcm, backend=be, mode=Mode.MONO, reservoir_mode="aligned")
         outs[be] = data
-    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["tpu"])
+    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["jax"])
     assert len(fa) == len(fb)
     for a, b in zip(fa, fb):
         assert (a.size, a.main_data_begin) == (b.size, b.main_data_begin)
@@ -117,7 +117,7 @@ def test_aligned_cross_backend_and_native():
 
     opts = MP3EncoderOptions(mode=Mode.MONO, reservoir_mode="aligned")
     batched = encode_batch(opts, [pcm], frames_per_step=4)
-    assert batched[0] == outs["tpu"]
+    assert batched[0] == outs["jax"]
 
 
 def test_aligned_vbr_and_stereo_decode():

@@ -81,7 +81,7 @@ def test_masking_thresholds_device_matches_golden():
         assert np.allclose(dev, gold, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("backend", ["numpy", "tpu"])
+@pytest.mark.parametrize("backend", ["numpy", "jax"])
 def test_session_checkpoint_resume(backend):
     pcm = sine(0.6)
     mid = len(pcm) // 2
@@ -170,7 +170,7 @@ def test_long_stream_batch_matches_session():
     ).astype(np.float32)
     opts = MP3EncoderOptions(mode=Mode.MONO, vbr=True, quality=4)
     got = encode_batch(opts, [pcm], frames_per_step=64)[0]
-    sess = MP3Encoder(opts, backend="tpu").new_session()
+    sess = MP3Encoder(opts, backend="jax").new_session()
     want = sess.encode(pcm) + sess.flush()
     assert got == want
     assert sess.encoded_frame_count > 1700

@@ -183,7 +183,7 @@ def test_device_backend_byte_equality(mode, kbps, vbr, seed):
         kw.update(vbr=True, quality=3)
     opts = MP3EncoderOptions.hq(**kw)
     golden = _encode(opts, pcm, backend="numpy")
-    device = _encode(opts, pcm, backend="tpu")
+    device = _encode(opts, pcm, backend="jax")
     assert golden == device
 
 
@@ -200,7 +200,7 @@ def test_depth_device_backend_byte_equality(passes, prop):
         dc_passes=passes, dc_proportional=prop,
     )
     golden = _encode(opts, pcm, backend="numpy")
-    device = _encode(opts, pcm, backend="tpu")
+    device = _encode(opts, pcm, backend="jax")
     assert golden == device
 
 

@@ -200,7 +200,7 @@ def test_free_format_encode_backends_byte_equal():
         linbits_tables=True,
     )
     a = MP3Encoder(opts, backend="numpy").new_session()
-    b = MP3Encoder(opts, backend="tpu").new_session()
+    b = MP3Encoder(opts, backend="jax").new_session()
     assert a.encode(pcm) + a.flush() == b.encode(pcm) + b.flush()
 
 

@@ -1,4 +1,4 @@
-"""Seeded fuzz: random configs x random signals, numpy vs TPU backend.
+"""Seeded fuzz: random configs x random signals, numpy vs JAX backend.
 
 Checks the full contract on each draw: identical frame structure across
 backends, valid bitstream, decoder-oracle acceptance (with decoded-value
@@ -118,22 +118,22 @@ def test_fuzz_backend_equivalence(trial):
     )
     outs = {}
     counts = {}
-    for be in ["numpy", "tpu"]:
+    for be in ["numpy", "jax"]:
         s = MP3Encoder(MP3EncoderOptions(**opts), backend=be).new_session()
         outs[be] = s.encode(pcm) + s.flush()
         counts[be] = (s.encoded_frame_count, s.encoded_byte_count)
 
     fa = parse_frames(outs["numpy"])
-    fb = parse_frames(outs["tpu"])
+    fb = parse_frames(outs["jax"])
     assert len(fa) == len(fb), opts
     for a, b in zip(fa, fb):
         assert (a.size, a.bitrate_kbps, a.padding, a.mode, a.crc_protected) == (
             b.size, b.bitrate_kbps, b.padding, b.mode, b.crc_protected,
         ), opts
-    assert counts["numpy"][0] == counts["tpu"][0]
-    assert counts["numpy"][1] == counts["tpu"][1]
+    assert counts["numpy"][0] == counts["jax"][0]
+    assert counts["numpy"][1] == counts["jax"][1]
 
-    dec = decode_mp3(outs["tpu"])
+    dec = decode_mp3(outs["jax"])
     assert dec.frame_count == len(fb)
     assert dec.sample_rate == sr and dec.channels == ch
     # decoded-value sanity. In compat mode the reference's reservoir
@@ -167,7 +167,7 @@ def test_fuzz_aligned_decodes(trial):
     opts = MP3EncoderOptions(
         mode=mode, sample_rate=sr, bitrate_kbps=kbps, reservoir_mode="aligned"
     )
-    s = MP3Encoder(opts, backend="tpu").new_session()
+    s = MP3Encoder(opts, backend="jax").new_session()
     data = s.encode(pcm) + s.flush()
     frames = parse_frames(data)
     dec = decode_mp3(data)
@@ -220,12 +220,12 @@ def test_fuzz_spec_strict_flags(trial):
     pcm = _random_signal(rng, n, kind)
 
     outs = {}
-    for be in ["numpy", "tpu"]:
+    for be in ["numpy", "jax"]:
         s = MP3Encoder(opts, backend=be).new_session()
         outs[be] = s.encode(pcm) + s.flush()
 
     fa = parse_frames(outs["numpy"])
-    fb = parse_frames(outs["tpu"])
+    fb = parse_frames(outs["jax"])
     assert len(fa) == len(fb), (trial, psy, scfsi)
     for a, b in zip(fa, fb):
         assert (a.size, a.bitrate_kbps, a.padding, a.mode, a.crc_protected) == (
@@ -279,7 +279,7 @@ def test_fuzz_strict_long_reservoir(trial):
     kind = 2 + trial  # noise, then bursts
     pcm = _random_signal(rng, n_frames * 1152, kind)
     opts = MP3EncoderOptions.spec_strict(mode=Mode.MONO, bitrate_kbps=64)
-    s = MP3Encoder(opts, backend="tpu").new_session()
+    s = MP3Encoder(opts, backend="jax").new_session()
     data = s.encode(pcm) + s.flush()
     frames = parse_frames(data)
     assert len(frames) == n_frames
@@ -327,10 +327,10 @@ def test_fuzz_aligned_partial_strict_flags(trial):
     pcm = _random_signal(rng, n, int(rng.integers(1, 4)))
 
     outs = {}
-    for be in ["numpy", "tpu"]:
+    for be in ["numpy", "jax"]:
         s = MP3Encoder(opts, backend=be).new_session()
         outs[be] = s.encode(pcm) + s.flush()
-    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["tpu"])
+    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["jax"])
     assert len(fa) == len(fb), trial
     for a, b in zip(fa, fb):
         assert (a.size, a.bitrate_kbps, a.padding) == (
@@ -363,24 +363,24 @@ def test_fuzz_intensity_active(trial):
         mode=Mode.JOINT_STEREO, bitrate_kbps=32, intensity_stereo=True
     )
     outs = {}
-    for be in ["numpy", "tpu"]:
+    for be in ["numpy", "jax"]:
         s = MP3Encoder(opts, backend=be).new_session()
         outs[be] = s.encode(pcm) + s.flush()
     fa = parse_frames(outs["numpy"])
-    fb = parse_frames(outs["tpu"])
+    fb = parse_frames(outs["jax"])
     assert len(fa) == len(fb), (trial, kind)
     for a, b in zip(fa, fb):
         assert (a.size, a.bitrate_kbps, a.padding, a.mode) == (
             b.size, b.bitrate_kbps, b.padding, b.mode,
         ), (trial, kind)
-    dec = decode_mp3(outs["tpu"], iso_conventions=True)
+    dec = decode_mp3(outs["jax"], iso_conventions=True)
     assert dec.frame_count == len(fb)
     assert np.all(np.isfinite(dec.pcm))
     from swiftmp3_tpu.utils.external import have_mpg123, mpg123_decode
     from swiftmp3_tpu.utils.quality import decode_agreement_snr
 
     if have_mpg123():
-        ext, _ = mpg123_decode(outs["tpu"])
+        ext, _ = mpg123_decode(outs["jax"])
         if ext.shape[0] > 1152:
             agree = decode_agreement_snr(ext[:, 0], dec.pcm[:, 0])
             assert agree > 60.0, (trial, kind, agree)

@@ -159,7 +159,7 @@ def test_pool_and_batch_match_session_gapless():
     )
     # device-backend session: batch/pool ride the device float stack, and
     # byte equality is only guaranteed within a backend
-    s = MP3Encoder(opts, backend="tpu").new_session()
+    s = MP3Encoder(opts, backend="jax").new_session()
     want = s.encode(pcm) + s.flush()
     want = s.generate_xing_header() + want
 

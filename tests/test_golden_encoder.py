@@ -2,7 +2,7 @@
 
 Ports the reference test strategy (SwiftMP3Tests.swift): structural unit
 tests, bitstream self-parsing of encoder internals, determinism. The same
-suite runs against the TPU backend in test_tpu_backend.py.
+suite runs against the JAX backend in test_tpu_backend.py.
 """
 
 import numpy as np

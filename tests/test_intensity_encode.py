@@ -193,7 +193,7 @@ def test_options_validation():
         MP3EncoderOptions.hq(
             mode=Mode.JOINT_STEREO, bitrate_kbps=32, intensity_stereo=True
         ),
-        backend="tpu",
+        backend="jax",
     )
 
 
@@ -208,7 +208,7 @@ def test_options_validation():
 
 def _encode_dev(pcm, kbps, **kw):
     opts = MP3EncoderOptions.hq(mode=Mode.JOINT_STEREO, bitrate_kbps=kbps, **kw)
-    s = EncoderSession(opts, backend="tpu")
+    s = EncoderSession(opts, backend="jax")
     return s.encode(pcm) + s.flush()
 
 
@@ -319,7 +319,7 @@ def test_batch_and_pool_accept_intensity():
     )
     refs = []
     for p in (pcm, pcm2):
-        s = EncoderSession(opts, backend="tpu")
+        s = EncoderSession(opts, backend="jax")
         refs.append(s.encode(p) + s.flush())
     outs = encode_batch(opts, [pcm, pcm2])
     assert outs[0] == refs[0] and outs[1] == refs[1]
@@ -502,10 +502,10 @@ def test_noise_flat_gate_device_parity():
         mode=Mode.JOINT_STEREO, bitrate_kbps=32, intensity_stereo=True
     )
     outs = {}
-    for backend in ("numpy", "tpu"):
+    for backend in ("numpy", "jax"):
         s = EncoderSession(opts, backend=backend)
         outs[backend] = s.encode(pcm) + s.flush()
-    assert outs["numpy"] == outs["tpu"]
+    assert outs["numpy"] == outs["jax"]
 
 
 @pytest.mark.slow

@@ -264,8 +264,8 @@ def test_hq_backends_agree():
 
     pcm = _tonal(5 * 1152)
     o = MP3EncoderOptions.hq(mode=Mode.MONO, bitrate_kbps=256)
-    outs = {be: _encode(o, pcm, backend=be) for be in ("numpy", "tpu")}
-    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["tpu"])
+    outs = {be: _encode(o, pcm, backend=be) for be in ("numpy", "jax")}
+    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["jax"])
     assert len(fa) == len(fb)
     for a, b in zip(fa, fb):
         assert (a.size, a.bitrate_kbps, a.padding, a.mode) == (
@@ -275,7 +275,7 @@ def test_hq_backends_agree():
     for be, blob in outs.items():
         dec = decode_mp3(blob, iso_conventions=True)
         snrs[be] = measure_quality(pcm, dec.pcm[:, 0], compensate_gain=False).snr_db
-    assert abs(snrs["numpy"] - snrs["tpu"]) < 1.0, snrs
+    assert abs(snrs["numpy"] - snrs["jax"]) < 1.0, snrs
     assert min(snrs.values()) > 40.0, snrs
 
 
@@ -350,8 +350,8 @@ def test_demand_budget_backends_agree():
     # lowpass_hz=None: isolate the donation mechanism from the hq preset's
     # rate-derived adaptive lowpass (round 4), which trades raw SNR for NMR
     o = MP3EncoderOptions.hq(mode=Mode.MONO, bitrate_kbps=64, lowpass_hz=None)
-    outs = {be: _encode(o, pcm, backend=be) for be in ("numpy", "tpu")}
-    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["tpu"])
+    outs = {be: _encode(o, pcm, backend=be) for be in ("numpy", "jax")}
+    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["jax"])
     assert len(fa) == len(fb)
     for a, b in zip(fa, fb):
         assert (a.size, a.bitrate_kbps, a.padding, a.mode) == (
@@ -365,7 +365,7 @@ def test_demand_budget_backends_agree():
         snrs[be] = measure_quality(
             interior, dec.pcm[:, 0], compensate_gain=False
         ).snr_db
-    assert abs(snrs["numpy"] - snrs["tpu"]) < 1.0, snrs
+    assert abs(snrs["numpy"] - snrs["jax"]) < 1.0, snrs
     assert min(snrs.values()) > 9.0, snrs
 
 

@@ -60,7 +60,7 @@ def test_lowpass_backends_agree():
     pcm = _wideband(6 * 1152)
     opts = MP3EncoderOptions.hq(mode=Mode.MONO, bitrate_kbps=128, lowpass_hz=10000)
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     fa, fb = parse_frames(a), parse_frames(b)
     assert len(fa) == len(fb)
     for x, y in zip(fa, fb):

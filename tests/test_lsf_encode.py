@@ -285,7 +285,7 @@ def test_lsf_chunking_invariance():
 
 def _both_backends(opts: MP3EncoderOptions, pcm: np.ndarray) -> tuple[bytes, bytes]:
     outs = []
-    for be in ("numpy", "tpu"):
+    for be in ("numpy", "jax"):
         sess = EncoderSession(opts, backend=be)
         outs.append(sess.encode(pcm) + sess.flush())
     return outs[0], outs[1]
@@ -329,18 +329,18 @@ def test_lsf_device_vbr_demand_byte_equality():
 
 
 def test_lsf_device_checkpoint_resume():
-    """TPUBackend state_dict/resume mid-stream at an LSF rate (the carry
+    """JaxBackend state_dict/resume mid-stream at an LSF rate (the carry
     pytree holds the 255-cap counters and the n_gr=1 sequencer state)."""
     sr = 16000
     pcm = _content(sr, seconds=1.0)
     opts = MP3EncoderOptions.hq(sample_rate=sr, bitrate_kbps=48, mode=Mode.MONO)
-    whole_sess = EncoderSession(opts, backend="tpu")
+    whole_sess = EncoderSession(opts, backend="jax")
     whole = whole_sess.encode(pcm) + whole_sess.flush()
     cut = 576 * 9 + 77
-    a = EncoderSession(opts, backend="tpu")
+    a = EncoderSession(opts, backend="jax")
     out1 = a.encode(pcm[:cut])
     state = a.state_dict()
-    b = EncoderSession(opts, backend="tpu")
+    b = EncoderSession(opts, backend="jax")
     b.load_state_dict(state)
     out2 = b.encode(pcm[cut:]) + b.flush()
     assert out1 + out2 == whole

@@ -210,6 +210,6 @@ def test_two_process_encode_batch_multihost_bytes(tmp_path):
         pcm = (rng.standard_normal(1152 * (2 + i % 3) + 137 * i) * 0.4).astype(
             np.float32
         )
-        s = MP3Encoder(opts, backend="tpu").new_session()
+        s = MP3Encoder(opts, backend="jax").new_session()
         want = s.encode(pcm) + s.flush()
         assert got == want, f"stream {i}: {len(got)} vs {len(want)} bytes"

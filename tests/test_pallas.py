@@ -1,27 +1,9 @@
-"""Pallas kernel tests (interpret mode on CPU)."""
+"""Kernel and DSP-formulation tests (Pallas kernels in interpret mode on CPU)."""
 
 import numpy as np
 import pytest
 
 from swiftmp3_tpu.ops import dsp
-
-
-def test_polyphase_pallas_matches_jnp():
-    import jax.numpy as jnp
-
-    from swiftmp3_tpu.ops.pallas_kernels import polyphase_chunk_pallas
-
-    rng = np.random.default_rng(0)
-    B, ch, T = 3, 2, 8
-    hist = (rng.standard_normal((B, ch, 480)) * 0.2).astype(np.float32)
-    pcm = (rng.standard_normal((B, ch, T * 1152)) * 0.5).astype(np.float32)
-    S_ref, x_ref = dsp.polyphase_chunk(jnp.asarray(hist), jnp.asarray(pcm))
-    S_pal, x_pal = polyphase_chunk_pallas(
-        jnp.asarray(hist), jnp.asarray(pcm), interpret=True
-    )
-    assert S_pal.shape == S_ref.shape
-    assert np.abs(np.asarray(S_ref) - np.asarray(S_pal)).max() < 2e-5
-    assert np.array_equal(np.asarray(x_ref), np.asarray(x_pal))
 
 
 def test_device_pack_matches_host_pack():
@@ -50,28 +32,30 @@ def test_device_pack_matches_host_pack():
 @pytest.mark.parametrize(
     "F,P,cap", [(16, 1152, 894), (5, 576, 894), (8, 1812, 1536), (3, 1152, 2160)]
 )
-def test_pack_pallas_matches_xla(F, P, cap):
-    """The VMEM pack kernel (interpret mode on CPU) is bit-identical to the
-    XLA pack across frame/slot/cap shapes, including non-128-multiple P."""
+def test_pack_main_data_matches_host_bitwriter(F, P, cap):
+    """The device pack (bf16 one-hot matmuls, f32 accumulation) writes the
+    same bytes as the host bit-writer across frame/slot/cap shapes,
+    including slot counts that are not multiples of 128."""
     import jax
-    import jax.numpy as jnp
 
-    from swiftmp3_tpu.ops import pallas_kernels as pk
+    from swiftmp3_tpu.io.huffman_pack import pack_chunks
 
     rng = np.random.default_rng(7)
     nb = rng.integers(0, 16, size=(F, P)).astype(np.int32)
     scale = (cap * 8 - 64) / max(nb.sum(axis=1).max(), 1)
-    if scale < 1:  # keep every frame under the cap
+    if scale < 1:  # thin, then cut every frame to fit the cap
         nb = np.where(rng.random((F, P)) < scale, nb, 0)
+        nb = np.where(np.cumsum(nb, axis=1) <= cap * 8, nb, 0)
     ch = np.zeros((F, P), np.int32)
     nz = nb > 0
     ch[nz] = rng.integers(0, 1 << 15, size=nz.sum()) & ((1 << nb[nz]) - 1)
-    b_ref, t_ref = jax.jit(lambda c, n: dsp.pack_main_data(c, n, cap))(ch, nb)
-    b_pl, t_pl = jax.jit(
-        lambda c, n: pk.pack_pallas(c, n, cap, interpret=True)
-    )(jnp.asarray(ch), jnp.asarray(nb))
-    assert np.array_equal(np.asarray(b_ref), np.asarray(b_pl))
-    assert np.array_equal(np.asarray(t_ref), np.asarray(t_pl))
+    by, total = jax.jit(lambda c, n: dsp.pack_main_data(c, n, cap))(ch, nb)
+    by, total = np.asarray(by), np.asarray(total)
+    for f in range(F):
+        host, host_bits = pack_chunks(ch[f].astype(np.int64), nb[f])
+        assert total[f] == host_bits
+        assert by[f, : len(host)].tobytes() == host
+        assert not by[f, len(host) :].any()
 
 
 def test_t15_code_lookup_exact():
@@ -84,24 +68,28 @@ def test_t15_code_lookup_exact():
     assert np.array_equal(got, TABLE15_CODE)
 
 
+def _sweep_inputs(n=37, seed=7):
+    rng = np.random.default_rng(seed)
+    spec = (
+        rng.standard_normal((n, 576)) * 10 ** rng.uniform(-5, 0.5, (n, 1))
+    ).astype(np.float32)
+    spec[3] = 0.0  # silent granule
+    mag = (np.maximum(np.abs(spec), 1e-10) ** 0.75).astype(np.float32)
+    g0 = rng.integers(0, 256, n).astype(np.int32)
+    return spec, mag, g0
+
+
 @pytest.mark.parametrize("iso", [False, True])
 def test_rate_sweep_pallas_matches_xla(iso):
-    """The fused Pallas gain-sweep kernel (interpret mode on CPU) returns
-    bit-identical (bits, bv) to the XLA formulation for both quantization
-    laws."""
+    """The fused Triton-route sweep kernel (interpret mode on CPU) returns
+    bit-identical (bits, bv) to the jnp formulation for both quantization
+    laws, across a partial last block (37 granules)."""
     import jax.numpy as jnp
 
     from swiftmp3_tpu.ops import pallas_kernels as pk
 
-    rng = np.random.default_rng(7)
-    spec = (
-        rng.standard_normal((37, 576)) * 10 ** rng.uniform(-5, 0.5, (37, 1))
-    ).astype(np.float32)
-    spec[3] = 0.0  # silent granule
-    mag = (np.maximum(np.abs(spec), 1e-10) ** 0.75).astype(np.float32)
-    g0 = rng.integers(0, 256, 37).astype(np.int32)
-
-    bits_p, bv_p = pk.rate_sweep_pallas(
+    spec, mag, g0 = _sweep_inputs()
+    bits_p, bv_p = pk.rate_sweep(
         jnp.asarray(mag), jnp.asarray(g0), iso=iso, interpret=True
     )
     gains = jnp.asarray(g0[:, None] + 4 * np.arange(20, dtype=np.int32))
@@ -115,6 +103,127 @@ def test_rate_sweep_pallas_matches_xla(iso):
     )
     assert np.array_equal(np.asarray(bits_p), np.asarray(bits))
     assert np.array_equal(np.asarray(bv_p), np.asarray(bv))
+
+
+@pytest.mark.chip
+def test_rate_sweep_kernel_compiled_matches_jnp():
+    """The compiled kernel (no interpret mode) equals the jnp sweep; runs
+    only where JAX's device is a GPU (chip_smoke.py covers it at full
+    width)."""
+    import jax
+    import jax.numpy as jnp
+
+    from swiftmp3_tpu.ops import pallas_kernels as pk
+
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU: the Triton kernel has no CPU lowering")
+    spec, mag, g0 = _sweep_inputs(n=4099)
+    for iso in (False, True):
+        got = pk.rate_sweep(jnp.asarray(mag), jnp.asarray(g0), iso=iso)
+        want = dsp._t15_sweep(
+            jnp.asarray(mag), jnp.asarray(spec < 0), jnp.asarray(g0), iso, False
+        )
+        for a, b in zip(got, want):
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_sweep_kernel_chosen_only_on_gpu(monkeypatch):
+    """The pipeline picks the fused sweep by platform alone: never on the
+    CPU, always on a GPU device."""
+    import jax
+
+    from swiftmp3_tpu.ops import pallas_kernels as pk
+
+    assert jax.devices()[0].platform == "cpu"
+    assert not pk.sweep_kernel_enabled()
+
+    class _Gpu:
+        platform = "gpu"
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [_Gpu()])
+    assert pk.sweep_kernel_enabled()
+
+
+@pytest.mark.parametrize("on_gpu", [False, True])
+def test_compat_chunk_sweep_dispatch(monkeypatch, on_gpu):
+    """Traced compat chunk program: no kernel off the GPU; on the GPU the
+    sweep is one compiled (never interpreted) Triton pallas_call."""
+    import jax
+
+    from swiftmp3_tpu.models import pipeline
+    from swiftmp3_tpu.options import MP3EncoderOptions, Mode
+
+    monkeypatch.setattr(pipeline, "sweep_kernel_enabled", lambda: on_gpu)
+    opts = MP3EncoderOptions(mode=Mode.STEREO)
+    B, T = 2, 2
+    jaxpr = jax.make_jaxpr(pipeline.make_chunk_fn(opts))(
+        pipeline.init_carry(B, opts),
+        np.zeros((B, T, 2304), np.int16),
+        np.zeros((B, T), bool),
+        np.ones((B, T), bool),
+    )
+    calls = [e for e in _walk_eqns(jaxpr.jaxpr) if e.primitive.name == "pallas_call"]
+    if not on_gpu:
+        assert calls == []
+        return
+    assert len(calls) == 1
+    assert not calls[0].params["interpret"]
+    assert calls[0].params["compiler_params"]["triton"] is not None
+
+
+def _walk_eqns(jaxpr):
+    """Every equation of a jaxpr, recursing into sub-jaxprs."""
+    from jax.extend import core as jex_core
+
+    for eqn in jaxpr.eqns:
+        yield eqn
+        for v in eqn.params.values():
+            subs = v if isinstance(v, (tuple, list)) else (v,)
+            for sub in subs:
+                if isinstance(sub, jex_core.ClosedJaxpr):
+                    yield from _walk_eqns(sub.jaxpr)
+                elif isinstance(sub, jex_core.Jaxpr):
+                    yield from _walk_eqns(sub)
+
+
+@pytest.mark.parametrize("preset", ["compat", "hq"])
+def test_chunk_f32_dots_request_highest_precision(preset):
+    """Every float32 dot_general in the chunk program asks for HIGHEST
+    precision (a GPU runs an unqualified f32 dot in TF32); only the pack's
+    bfloat16 one-hot operands, which hold exact small integers, may not."""
+    import jax
+
+    from swiftmp3_tpu.models import pipeline
+    from swiftmp3_tpu.options import MP3EncoderOptions, Mode
+
+    if preset == "compat":
+        opts = MP3EncoderOptions(mode=Mode.STEREO)
+    else:
+        opts = MP3EncoderOptions.hq(mode=Mode.STEREO)
+    B, T = 2, 2
+    args = [
+        pipeline.init_carry(B, opts),
+        np.zeros((B, T, 2304), np.float32),
+        np.zeros((B, T), bool),
+        np.ones((B, T), bool),
+    ]
+    if opts.window_sequencing:
+        args.append(np.zeros((B, T, 1152), np.float32))
+    jaxpr = jax.make_jaxpr(pipeline.make_chunk_fn(opts))(*args)
+    dots = [e for e in _walk_eqns(jaxpr.jaxpr) if e.primitive.name == "dot_general"]
+    assert dots
+    n_f32 = 0
+    for e in dots:
+        dtypes = {v.aval.dtype for v in e.invars}
+        if dtypes == {np.dtype(jax.numpy.bfloat16)}:
+            continue
+        assert dtypes == {np.dtype(np.float32)}, dtypes
+        prec = e.params["precision"]
+        assert prec is not None and all(
+            p == jax.lax.Precision.HIGHEST for p in prec
+        ), (prec, e)
+        n_f32 += 1
+    assert n_f32 > 0
 
 
 def test_polyphase_matmul_matches_stepwise():

@@ -27,7 +27,7 @@ def test_batch_matches_sessions_sharded():
     mesh = make_mesh()
     batched = encode_batch(opts, streams, frames_per_step=4, mesh=mesh)
     for i, s in enumerate(streams):
-        sess = MP3Encoder(opts, backend="tpu").new_session()
+        sess = MP3Encoder(opts, backend="jax").new_session()
         expect = sess.encode(s) + sess.flush()
         assert batched[i] == expect, f"stream {i}"
 
@@ -41,7 +41,7 @@ def test_batch_unsharded_stereo():
     ]
     batched = encode_batch(opts, streams, frames_per_step=4)
     for i, s in enumerate(streams):
-        sess = MP3Encoder(opts, backend="tpu").new_session()
+        sess = MP3Encoder(opts, backend="jax").new_session()
         expect = sess.encode(s) + sess.flush()
         assert batched[i] == expect
 
@@ -92,6 +92,6 @@ def test_multihost_single_process_int16_and_float_match():
     i16 = (rng.standard_normal(1152 * 2 + 900) * 8000).astype(np.int16)
     for pcm in (f32, i16):
         got = encode_batch_multihost(opts, [pcm], frames_per_step=4)[0]
-        sess = MP3Encoder(opts, backend="tpu").new_session()
+        sess = MP3Encoder(opts, backend="jax").new_session()
         want = sess.encode(pcm) + sess.flush()
         assert got == want, pcm.dtype

@@ -13,7 +13,7 @@ from .util import parse_frames
 
 
 def _session_encode(opts, pcm):
-    s = MP3Encoder(opts, backend="tpu").new_session()
+    s = MP3Encoder(opts, backend="jax").new_session()
     return s.encode(pcm) + s.flush()
 
 
@@ -139,7 +139,7 @@ def test_pool_xing_header_matches_session():
     pool.feed(sid, pcm)
     pool.close(sid)
     pool.run_until_idle()
-    s = MP3Encoder(opts, backend="tpu").new_session()
+    s = MP3Encoder(opts, backend="jax").new_session()
     body = s.encode(pcm) + s.flush()
     assert pool.result(sid) == body
     assert pool.xing_header(sid) == s.generate_xing_header()
@@ -161,7 +161,7 @@ def test_pool_int16_feed_matches_float():
     pool.feed(b, f)
     pool.close(b)
     pool.run_until_idle()
-    s = MP3Encoder(opts, backend="tpu").new_session()
+    s = MP3Encoder(opts, backend="jax").new_session()
     want_i16 = s.encode(i16) + s.flush()
     assert pool.result(a) == want_i16
     assert pool.result(b) == _session_encode(opts, f)

@@ -103,7 +103,7 @@ def test_backends_agree_at_depth():
         mode=Mode.MONO, bitrate_kbps=96, reservoir_depth=3
     )
     g, _ = _encode(opts96, sparse, "numpy")
-    d, _ = _encode(opts96, sparse, "tpu")
+    d, _ = _encode(opts96, sparse, "jax")
     assert [f.size for f in parse_frames(g)] == [
         f.size for f in parse_frames(d)
     ]

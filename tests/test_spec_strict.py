@@ -19,7 +19,7 @@ def _sine(seconds=1.0, sr=44100, freq=440.0, amp=0.5):
     return (amp * np.sin(2 * np.pi * freq * t)).astype(np.float32)
 
 
-def _encode(opts, pcm, backend="tpu"):
+def _encode(opts, pcm, backend="jax"):
     s = MP3Encoder(opts, backend=backend).new_session()
     return s.encode(pcm) + s.flush()
 
@@ -43,7 +43,7 @@ def test_iso_quantization_backends_agree():
     x = rng.standard_normal(1152 * 5).astype(np.float32) * 0.3
     opts = MP3EncoderOptions(mode=Mode.MONO, iso_quantization=True)
     a = _encode(opts, x, "numpy")
-    b = _encode(opts, x, "tpu")
+    b = _encode(opts, x, "jax")
     fa, fb = parse_frames(a), parse_frames(b)
     assert len(fa) == len(fb)
     assert a == b  # byte parity holds on this signal
@@ -77,7 +77,7 @@ def test_iso_crc_backends_agree():
         mode=Mode.STEREO, crc_protected=True, iso_crc=True, reservoir_mode="aligned"
     )
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     assert a == b
     assert all(verify_frame_crcs(a))
 
@@ -87,7 +87,7 @@ def test_iso_crc_native_renderer_matches():
 
     pcm = _sine(0.6, freq=330.0)
     opts = MP3EncoderOptions(mode=Mode.MONO, crc_protected=True, iso_crc=True)
-    want = _encode(opts, pcm, "tpu")
+    want = _encode(opts, pcm, "jax")
     got = encode_batch(opts, [pcm], frames_per_step=4)[0]
     assert got == want
     assert all(verify_frame_crcs(got))
@@ -119,7 +119,7 @@ def test_entropy_flags_backends_agree_and_decode(flags):
         iso_quantization=True, **flags,
     )
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     assert a == b
     frames = parse_frames(b)
     dec = decode_mp3(b)
@@ -188,7 +188,7 @@ def test_entropy_flags_native_renderer_matches():
 
     pcm = _noise(1.0, seed=7)
     opts = MP3EncoderOptions.spec_strict(mode=Mode.STEREO, bitrate_kbps=128)
-    want = _encode(opts, pcm_st := np.repeat(pcm, 2), "tpu")
+    want = _encode(opts, pcm_st := np.repeat(pcm, 2), "jax")
     got = encode_batch(opts, [pcm_st], frames_per_step=4)[0]
     assert got == want
 
@@ -245,7 +245,7 @@ def test_spec_strict_vbr_backends_agree_and_decode():
     )
     pcm2 = np.repeat(pcm, 2)
     a = _encode(opts, pcm2, "numpy")
-    b = _encode(opts, pcm2, "tpu")
+    b = _encode(opts, pcm2, "jax")
     assert a == b
     frames = parse_frames(b)
     dec = decode_mp3(b)
@@ -269,7 +269,7 @@ def test_real_scalefactors_backends_agree_and_decode():
         real_scalefactors=True,
     )
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     assert a == b
     frames = parse_frames(b)
     dec = decode_mp3(b)
@@ -389,7 +389,7 @@ def test_psy_scalefactors_backends_agree_and_decode():
     pcm = _noise(1.2, seed=9)
     opts = MP3EncoderOptions.spec_strict(mode=Mode.MONO, psy_scalefactors=True)
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     assert a == b
     frames = parse_frames(b)
     dec = decode_mp3(b)
@@ -464,7 +464,7 @@ def test_scfsi_backends_agree_native_and_decode():
         mode=Mode.MONO, scfsi=True, psy_scalefactors=True
     )
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     assert a == b
     got = encode_batch(opts, [pcm], frames_per_step=4)[0]
     assert got == a  # native renderer writes the same scfsi side info
@@ -579,7 +579,7 @@ def test_iso_mode_ext_varies_and_backends_agree():
     pcm = _joint_mixed_signal()
     opts = MP3EncoderOptions(mode=Mode.JOINT_STEREO, iso_mode_ext=True)
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     assert a == b
     exts = set()
     i = 0
@@ -604,7 +604,7 @@ def test_iso_mode_ext_native_renderer_matches():
 
     pcm = _joint_mixed_signal(1.2)
     opts = MP3EncoderOptions(mode=Mode.JOINT_STEREO, iso_mode_ext=True)
-    want = _encode(opts, pcm, "tpu")
+    want = _encode(opts, pcm, "jax")
     got = encode_batch(opts, [pcm], frames_per_step=4)[0]
     assert got == want
 
@@ -702,7 +702,7 @@ def test_iso_ms_matrix_backends_agree_and_decode_unit_gain():
     pcm[1::2] = np.roll(mono, 5) * np.float32(0.92)
     opts = MP3EncoderOptions.spec_strict(mode=Mode.JOINT_STEREO)
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     fa, fb = parse_frames(a), parse_frames(b)
     assert len(fa) == len(fb)
     for x, y in zip(fa, fb):
@@ -923,7 +923,7 @@ def test_iso_short_blocks_backends_agree_and_decode(sr, mode):
     pcm = _burst(sr=sr, ch=mode.channels)
     opts = MP3EncoderOptions.spec_strict(mode=mode, sample_rate=sr)
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     # cross-backend contract (CLAUDE.md invariants): structure always equal;
     # bytes can differ at isolated float-stack ULP flips (measured: 1 byte in
     # 7.5 kB at 32k — an sf exponent on a power-of-2 boundary), so assert
@@ -971,7 +971,7 @@ def test_iso_short_blocks_native_renderer_matches():
 
     pcm = _burst(0.4)
     opts = MP3EncoderOptions.spec_strict(mode=Mode.MONO)
-    want = _encode(opts, pcm, "tpu")
+    want = _encode(opts, pcm, "jax")
     got = encode_batch(opts, [pcm], frames_per_step=4)[0]
     assert got == want
 
@@ -1093,7 +1093,7 @@ def test_shared_ms_blocks_backends_agree():
     pcm = _bursty_decorrelated_stereo(8 * 1152)
     opts = MP3EncoderOptions.spec_strict(mode=Mode.JOINT_STEREO, bitrate_kbps=128)
     a = _encode(opts, pcm, "numpy")
-    b = _encode(opts, pcm, "tpu")
+    b = _encode(opts, pcm, "jax")
     fa, fb = parse_frames(a), parse_frames(b)
     assert len(fa) == len(fb)
     for x, y in zip(fa, fb):

@@ -1,4 +1,4 @@
-"""TPU (JAX) backend tests: structural suite + cross-backend parity.
+"""JAX backend tests: structural suite + cross-backend parity.
 
 Runs on the CPU platform in CI (see conftest). Cross-backend contract:
 - identical frame structure (sizes, headers, padding, bitrate choices)
@@ -17,7 +17,7 @@ from .util import parse_frames, silence, sine
 
 
 def session(**kwargs):
-    backend = kwargs.pop("backend", "tpu")
+    backend = kwargs.pop("backend", "jax")
     return MP3Encoder(MP3EncoderOptions(**kwargs), backend=backend).new_session()
 
 
@@ -79,11 +79,11 @@ class TestTPUStructural:
 class TestCrossBackend:
     def _structural_compare(self, pcm, **kwargs):
         outs = {}
-        for be in ["numpy", "tpu"]:
+        for be in ["numpy", "jax"]:
             s = session(backend=be, **kwargs)
             outs[be] = encode_all(s, pcm)
         fa = parse_frames(outs["numpy"])
-        fb = parse_frames(outs["tpu"])
+        fb = parse_frames(outs["jax"])
         assert len(fa) == len(fb)
         for a, b in zip(fa, fb):
             assert (a.size, a.bitrate_kbps, a.padding, a.mode) == (
@@ -93,7 +93,7 @@ class TestCrossBackend:
                 b.mode,
             )
         # numeric closeness: fraction of differing bytes is tiny
-        a, b = outs["numpy"], outs["tpu"]
+        a, b = outs["numpy"], outs["jax"]
         ndiff = sum(x != y for x, y in zip(a, b))
         assert ndiff / max(len(a), 1) < 0.02, ndiff
         return outs
@@ -101,7 +101,7 @@ class TestCrossBackend:
     def test_sine_identical(self):
         outs = self._structural_compare(sine(0.3), mode=Mode.MONO)
         # pure tones hit no decision boundaries: bytes match exactly
-        assert outs["numpy"] == outs["tpu"]
+        assert outs["numpy"] == outs["jax"]
 
     def test_noise_structural(self):
         rng = np.random.default_rng(12)
@@ -220,9 +220,9 @@ def test_session_continues_after_flush_matches_numpy():
 
     pcm = sine(0.3)
     outs = {}
-    for be in ["numpy", "tpu"]:
+    for be in ["numpy", "jax"]:
         s = session(backend=be, mode=Mode.MONO)
         data = s.encode(pcm) + s.flush()
         data += s.encode(pcm) + s.flush()
         outs[be] = data
-    assert outs["numpy"] == outs["tpu"]
+    assert outs["numpy"] == outs["jax"]

@@ -116,13 +116,13 @@ def _walk(data: bytes) -> list[tuple[int, int]]:
 def _flips(opts: MP3EncoderOptions, pcm: np.ndarray) -> tuple[int, int]:
     """(divergent_frames, total_frames) golden vs device for one stream."""
     outs = {}
-    for be in ("numpy", "tpu"):
+    for be in ("numpy", "jax"):
         s = EncoderSession(opts, backend=be)
         outs[be] = s.encode(pcm) + s.flush()
-    fa, fb = _walk(outs["numpy"]), _walk(outs["tpu"])
+    fa, fb = _walk(outs["numpy"]), _walk(outs["jax"])
     # structural equality is unconditional — no flip allowance
     assert [s for _, s in fa] == [s for _, s in fb], "structural divergence"
-    a, b = outs["numpy"], outs["tpu"]
+    a, b = outs["numpy"], outs["jax"]
     bad = sum(
         1 for (o, s), (o2, s2) in zip(fa, fb) if a[o : o + s] != b[o2 : o2 + s2]
     )

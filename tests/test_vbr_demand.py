@@ -66,11 +66,11 @@ def test_bitrate_tracks_demand_and_backends_agree():
         vbr=True, vbr_demand=True, quality=5,
     )
     brs = {}
-    for backend in ("numpy", "tpu"):
+    for backend in ("numpy", "jax"):
         blob = _encode(opts, pcm, backend)
         parse_frames(blob)
         brs[backend] = [fi.bitrate_kbps for fi in _iter_frames(blob)]
-    assert brs["numpy"] == brs["tpu"], brs
+    assert brs["numpy"] == brs["jax"], brs
     b = brs["numpy"]
     max_cap = min(320, 128 + 64 - 5 * 4)
     assert all(32 <= x <= max_cap for x in b), b
@@ -102,7 +102,7 @@ def test_reference_vbr_unchanged():
         mode=Mode.MONO, bitrate_kbps=128, vbr=True, quality=5
     )
     g = _encode(opts, pcm, "numpy")
-    d = _encode(opts, pcm, "tpu")
+    d = _encode(opts, pcm, "jax")
     assert g == d
     parse_frames(g)
 

@@ -115,7 +115,7 @@ def test_hangover_and_drop_extend_short_run():
     # at 11, hangover at 12); [18-19] flush decay (drop at 19, run
     # truncated by stream end — legal, nothing follows).
     expect = [1, 2, 2, 3, 0, 0, 0, 0, 0, 1, 2, 2, 2, 3, 0, 0, 0, 0, 1, 2]
-    for backend in ("numpy", "tpu"):
+    for backend in ("numpy", "jax"):
         blob = _encode(_hq(mode=Mode.MONO, bitrate_kbps=128), pcm, backend)
         bts = []
         for fi in _iter_frames(blob, strict=False):
@@ -152,7 +152,7 @@ def test_onset_detector_catches_early_attack():
     )
     pcm = np.clip(x, -0.99, 0.99).astype(np.float32)
     bt_seqs = {}
-    for backend in ("numpy", "tpu"):
+    for backend in ("numpy", "jax"):
         blob = _encode(_hq(mode=Mode.MONO, bitrate_kbps=128), pcm, backend)
         bts = []
         for fi in _iter_frames(blob, strict=False):
@@ -162,7 +162,7 @@ def test_onset_detector_catches_early_attack():
         bt_seqs[backend] = bts
         assert 2 in bts, (backend, bts)  # the short run fired
         assert 1 in bts and 3 in bts, (backend, bts)
-    assert bt_seqs["numpy"] == bt_seqs["tpu"], bt_seqs
+    assert bt_seqs["numpy"] == bt_seqs["jax"], bt_seqs
 
 
 def test_onset_chain_crosses_granule_boundary():
@@ -239,7 +239,7 @@ def test_onset_chain_crosses_granule_boundary():
 def test_onset_chain_survives_chunk_boundary():
     """The device onset/drop chain carries across CHUNK boundaries
     (pipeline carry onset_prev2): byte equality vs golden on a bursty
-    stream long enough to cross the TPU backend's chunking, with bursts
+    stream long enough to cross the JAX backend's chunking, with bursts
     placed so detector decisions land near frame 8/16 boundaries."""
     rng = np.random.default_rng(21)
     n = 21 * 1152 + 333
@@ -251,8 +251,8 @@ def test_onset_chain_survives_chunk_boundary():
         x[c : c + 300] += 0.5 * rng.standard_normal(300).astype(np.float32)
     pcm = np.clip(x, -1, 1).astype(np.float32)
     opts = _hq(mode=Mode.MONO, bitrate_kbps=64)
-    outs = {b: _encode(opts, pcm, b) for b in ("numpy", "tpu")}
-    assert outs["numpy"] == outs["tpu"]
+    outs = {b: _encode(opts, pcm, b) for b in ("numpy", "jax")}
+    assert outs["numpy"] == outs["jax"]
 
 
 def test_tdac_restored_through_transitions():
@@ -471,7 +471,7 @@ def test_sequenced_encode_batch_matches_sessions():
     ]
     batched = encode_batch(o, streams, frames_per_step=3)
     for i, s in enumerate(streams):
-        sess = MP3Encoder(o, backend="tpu").new_session()
+        sess = MP3Encoder(o, backend="jax").new_session()
         expect = sess.encode(s) + sess.flush()
         assert batched[i] == expect, f"stream {i}"
 
@@ -516,7 +516,7 @@ def test_sequenced_pool_matches_sessions():
 
     assert pool.result(sid_empty) == b""
     for i, sid in enumerate(sids):
-        sess = MP3Encoder(o, backend="tpu").new_session()
+        sess = MP3Encoder(o, backend="jax").new_session()
         expect = sess.encode(sigs[i]) + sess.flush()
         assert pool.result(sid) == expect, f"stream {i}"
 
@@ -533,8 +533,8 @@ def test_sequenced_backends_agree():
 
     pcm = _bursty(6 * 1152)
     o = _hq(mode=Mode.MONO, bitrate_kbps=256)
-    outs = {be: _encode(o, pcm, backend=be) for be in ("numpy", "tpu")}
-    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["tpu"])
+    outs = {be: _encode(o, pcm, backend=be) for be in ("numpy", "jax")}
+    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["jax"])
     assert len(fa) == len(fb)
     for a, b in zip(fa, fb):
         assert (a.size, a.bitrate_kbps, a.padding) == (
@@ -554,13 +554,13 @@ def test_sequenced_backends_agree():
         snrs[be] = measure_quality(
             pcm, dec.pcm[:, 0], compensate_gain=False
         ).snr_db
-    assert bt_seqs["numpy"] == bt_seqs["tpu"], bt_seqs
-    assert abs(snrs["numpy"] - snrs["tpu"]) < 1.0, snrs
+    assert bt_seqs["numpy"] == bt_seqs["jax"], bt_seqs
+    assert abs(snrs["numpy"] - snrs["jax"]) < 1.0, snrs
     assert min(snrs.values()) > 30.0, snrs
 
 
 def test_sequenced_backends_agree_stereo_chunked():
-    """Stereo + a stream long enough to cross the TPU backend's CHUNK=8
+    """Stereo + a stream long enough to cross the JAX backend's CHUNK=8
     boundary: the seq_prev_short carry and per-chunk lookahead must keep
     the device block sequence identical to golden's."""
     import sys
@@ -571,8 +571,8 @@ def test_sequenced_backends_agree_stereo_chunked():
     x = _bursty(11 * 1152, seed=17)
     st = np.stack([x, np.roll(x, 7)], axis=1)
     o = _hq(mode=Mode.JOINT_STEREO, bitrate_kbps=192)
-    outs = {be: _encode(o, st, backend=be) for be in ("numpy", "tpu")}
-    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["tpu"])
+    outs = {be: _encode(o, st, backend=be) for be in ("numpy", "jax")}
+    fa, fb = parse_frames(outs["numpy"]), parse_frames(outs["jax"])
     assert len(fa) == len(fb) and len(fa) == 12
     bt_seqs = {}
     for be, blob in outs.items():
@@ -583,4 +583,4 @@ def test_sequenced_backends_agree_stereo_chunked():
                 for gr in fi.granules for g in gr
             ))
         bt_seqs[be] = bts
-    assert bt_seqs["numpy"] == bt_seqs["tpu"], bt_seqs
+    assert bt_seqs["numpy"] == bt_seqs["jax"], bt_seqs

@@ -1,9 +1,9 @@
-"""Chip cost of distortion_control: hq vs hq(distortion_control=True).
+"""Device cost of distortion_control: hq vs hq(distortion_control=True).
 
 Usage: python tools/ab_dc_step.py [B] [T] [reps] [kbps]
 
-Runs BOTH configs in one process, alternating reps (rig drift protocol —
-see CLAUDE.md), at a bitrate where the dc gate is ACTIVE (>= 112 kbps per
+Runs BOTH configs in one process, alternating reps (only back-to-back
+comparisons on one card are valid), at a bitrate where the dc gate is ACTIVE (>= 112 kbps per
 channel; default 256 kbps stereo). Prints median chained per-step time for
 each and the ratio — the number quoted for dc's "costs a second walk pass"
 claim in ARCHITECTURE.md.

@@ -3,8 +3,8 @@
 Usage: python tools/ab_hq_step.py [B] [T] [reps]
 Prints the median chained per-step time for the hq preset at 128 kbps
 stereo — the A/B protocol for perf changes (run HEAD, `git stash`, run
-old, `git stash pop`, run HEAD again; rig drifts by the hour, so only
-back-to-back comparisons are valid — see CLAUDE.md).
+old, `git stash pop`, run HEAD again, on one card within one session:
+only back-to-back comparisons are valid).
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """A/B the block-sparse MDCT (dsp.mdct_chunk_blocksparse) vs the dense fold
-on the real chip — VERDICT r2 item 5, the one declared-untried perf lever.
+on the GPU.
 
-Protocol (CLAUDE.md rig-drift rules): standalone chained medians for both
-MDCT variants, then FULL-STEP chained medians A/B built back-to-back in one
-process (the rig drifts by the hour; alternating in one run is mandatory).
-Run on the TPU box with no platform override:
+Protocol: standalone chained medians for both MDCT variants, then FULL-STEP
+chained medians A/B built back-to-back in one process (compare two variants
+only within one run). Run on the GPU with no platform override:
 
     python tools/ab_mdct_blocksparse.py [--batch 128] [--frames 64]
 """
@@ -130,7 +129,7 @@ def main() -> int:
             carry=carry,
         )
 
-    # alternate twice each (rig drift discipline)
+    # alternate twice each (back-to-back comparisons only)
     t_f1, rr_f1 = run_full("fold")
     t_b1, rr_b1 = run_full("blocksparse")
     t_f2, rr_f2 = run_full("fold")

@@ -32,8 +32,8 @@ def main() -> None:
             with open(path, "wb") as f:
                 f.write(blob)
             print(f"{os.path.basename(path):45s} {len(blob):6d} B")
-        same = blobs["numpy"] == blobs["tpu"]
-        print(f"{name:45s} numpy==tpu: {same}")
+        same = blobs["numpy"] == blobs["jax"]
+        print(f"{name:45s} numpy==jax: {same}")
 
 
 if __name__ == "__main__":
